@@ -5,8 +5,8 @@ sine vectors "calculated using old version of program"."""
 import numpy as np
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import control as controllib
-from optimalcontrolmps_tpu import seeds
+from optimalcontrolmps import control as controllib
+from optimalcontrolmps import seeds
 
 
 def simple_basis():

@@ -20,9 +20,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import engine, groundstate, tebd
-from optimalcontrolmps_tpu import control as controllib
-from optimalcontrolmps_tpu import seeds
+from optimalcontrolmps import engine, groundstate, tebd
+from optimalcontrolmps import control as controllib
+from optimalcontrolmps import seeds
 
 L, NPART, D = 5, 5, 5
 J, CSTART, CEND = 1.0, 2.0, 50.0

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import dmrg, groundstate, mps
-from optimalcontrolmps_tpu.sites import op
+from optimalcontrolmps import dmrg, groundstate, mps
+from optimalcontrolmps.sites import op
 
 
 def test_ramp_schedule():

@@ -13,9 +13,9 @@ import os
 import numpy as np
 import pytest
 
-from optimalcontrolmps_tpu.drivers import (calculate_defects,
-                                           extend_time_evolution,
-                                           optimize_ramp)
+from optimalcontrolmps.drivers import (calculate_defects,
+                                       extend_time_evolution,
+                                       optimize_ramp)
 
 TINY = """input
 {{
@@ -96,9 +96,9 @@ def test_auto_engine_honors_truncation(tmp_path):
     truncates (chi < exact rank bound) so truncation-study configs keep
     the reference's truncated-MPS channel (ADVICE.md round 1), and the
     exact sector engine only when the MPS path would be truncation-free."""
-    from optimalcontrolmps_tpu.config import parse_input_file
-    from optimalcontrolmps_tpu.drivers.common import build_problem
-    from optimalcontrolmps_tpu.tebd import exact_rank_bound
+    from optimalcontrolmps.config import parse_input_file
+    from optimalcontrolmps.drivers.common import build_problem
+    from optimalcontrolmps.tebd import exact_rank_bound
 
     # L=3, d=2 -> p=3, exact rank bound = 3; maxBondDim=10 -> chi=3 (capped)
     # >= bound -> truncation-free -> sector
@@ -119,7 +119,7 @@ def test_auto_engine_honors_truncation(tmp_path):
 
 def test_amoeba_opt_smoke(tmp_path):
     """AmoebaOpt driver (C13): derivative-free NM run + output files."""
-    from optimalcontrolmps_tpu.drivers import amoeba_opt
+    from optimalcontrolmps.drivers import amoeba_opt
 
     cfg = tmp_path / "InputAmoeba"
     cfg.write_text(TINY.format(engine="mps").replace(
@@ -134,7 +134,7 @@ def test_amoeba_opt_smoke(tmp_path):
 def test_analyze_bond_dim_smoke(tmp_path):
     """AnalyzeBondDim driver (C15): chi convergence study on a tiny chain.
     Fidelities must be monotonically non-degrading with chi at the end."""
-    from optimalcontrolmps_tpu.drivers import analyze_bond_dim
+    from optimalcontrolmps.drivers import analyze_bond_dim
 
     cfg = tmp_path / "InputABD"
     cfg.write_text(TINY.format(engine="mps"))
@@ -149,7 +149,7 @@ def test_analyze_bond_dim_smoke(tmp_path):
 
 def test_analyze_quench_smoke(tmp_path):
     """AnalyzeQuench driver (C16): entropies + correlation files."""
-    from optimalcontrolmps_tpu.drivers import analyze_quench
+    from optimalcontrolmps.drivers import analyze_quench
 
     cfg = tmp_path / "InputAQ"
     cfg.write_text(TINY.format(engine="mps").replace("N = 3", "N = 4")
@@ -170,7 +170,7 @@ def test_analyze_quench_smoke(tmp_path):
 
 def test_test_runtimes_smoke():
     """TestRuntimes driver (C14): tables + cost consistency."""
-    from optimalcontrolmps_tpu.drivers import test_runtimes
+    from optimalcontrolmps.drivers import test_runtimes
 
     res = test_runtimes.run(horizons=(0.1,), batches=(1, 2),
                             with_hessian=False)

@@ -15,9 +15,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import engine, groundstate, tebd
-from optimalcontrolmps_tpu import control as controllib
-from optimalcontrolmps_tpu import seeds
+from optimalcontrolmps import engine, groundstate, tebd
+from optimalcontrolmps import control as controllib
+from optimalcontrolmps import seeds
 
 # d=4/chi=30 rather than the reference fixture's d=5/chi=40: these tests
 # are finite-difference-based (no golden numbers), and the smaller local
@@ -133,7 +133,7 @@ def test_lowmem_matches_exact(pieces):
 
 def test_batched_matches_single(pieces):
     """vmap over a batch of controls == one-at-a-time (determinism across
-    the batching dimension — the TPU analogue of thread-count invariance)."""
+    the batching dimension — the analogue of thread-count invariance)."""
     st, psi_i, psi_f, basis, fns = pieces
     rng = np.random.default_rng(9)
     us = jnp.asarray(rng.uniform(2.0, 50.0, (4, N)))
@@ -158,7 +158,7 @@ def test_remat_cost_grad_matches(pieces):
     J_remat = engine.cost(st, psi_i, psi_f, u, 1e-6, use_remat=True)
     np.testing.assert_allclose(float(J_plain), float(J_remat), rtol=1e-12)
 
-    from optimalcontrolmps_tpu import sector
+    from optimalcontrolmps import sector
     sst = sector.make_sector_stepper(L, D, NPART, J, TSTEP)
     spi = sector.sector_ground_state(L, D, NPART, J, CSTART)
     spf = sector.sector_ground_state(L, D, NPART, J, CEND)

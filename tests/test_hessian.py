@@ -12,9 +12,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import groundstate, tebd, engine
-from optimalcontrolmps_tpu import control as controllib
-from optimalcontrolmps_tpu import seeds
+from optimalcontrolmps import groundstate, tebd, engine
+from optimalcontrolmps import control as controllib
+from optimalcontrolmps import seeds
 
 # d=4/chi=30 rather than the reference fixture's d=5/chi=40: these tests
 # are finite-difference-based (no golden numbers), and the smaller local

@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu.ops import matfree
+from optimalcontrolmps.ops import matfree
 
 RNG = np.random.default_rng(7)
 
@@ -89,7 +89,7 @@ def test_chol_solve():
 
 def test_min_eig_matfree(monkeypatch):
     monkeypatch.setenv("OCMPS_LINALG", "matfree")
-    from optimalcontrolmps_tpu.ops.matfree import min_eig, solve_spd
+    from optimalcontrolmps.ops.matfree import min_eig, solve_spd
     A = RNG.normal(size=(24, 24))
     H = (A + A.T) / 2
     lam = float(min_eig(jnp.asarray(H)))
@@ -105,7 +105,7 @@ def test_interior_point_matfree_path(monkeypatch):
     """The NLP solver converges with the matmul-only solve/min-eig path."""
     monkeypatch.setenv("OCMPS_LINALG", "matfree")
     import jax
-    from optimalcontrolmps_tpu.optimize import minimize_interior_point
+    from optimalcontrolmps.optimize import minimize_interior_point
 
     n = 6
     A = RNG.normal(size=(n, n))

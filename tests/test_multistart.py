@@ -11,8 +11,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from optimalcontrolmps_tpu import control, sector, seeds
-from optimalcontrolmps_tpu.parallel.multistart import multistart_lbfgs
+from optimalcontrolmps import control, sector, seeds
+from optimalcontrolmps.parallel.multistart import multistart_lbfgs
 
 
 @pytest.fixture(scope="module")

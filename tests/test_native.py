@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from optimalcontrolmps_tpu import native, groundstate
+from optimalcontrolmps import native, groundstate
 
 
 pytestmark = pytest.mark.skipif(native.load() is None,

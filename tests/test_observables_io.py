@@ -8,10 +8,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import groundstate, mps, observables, io
-from optimalcontrolmps_tpu.config import (parse_input_text, write_input_file,
-                                          parse_input_file)
-from optimalcontrolmps_tpu.sites import op
+from optimalcontrolmps import groundstate, mps, observables, io
+from optimalcontrolmps.config import (parse_input_text, write_input_file,
+                                      parse_input_file)
+from optimalcontrolmps.sites import op
 
 L, D, NPART = 5, 4, 5
 CHI = 30
@@ -180,7 +180,7 @@ def test_state_serialization_roundtrip(tmp_path):
     """save_states/load_states round-trip for all three engine state
     layouts + fingerprint mismatch rejection (the reference round-trips
     site sets/MPS via BH_sites::read, include/BH_sites.h:39-53)."""
-    from optimalcontrolmps_tpu import groundstate, sector, vidal
+    from optimalcontrolmps import groundstate, sector, vidal
     meta = {"L": 3, "d": 2, "npart": 3, "chi": 4, "engine": "mps",
             "u": [2.5, 50.0]}
 

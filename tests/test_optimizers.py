@@ -9,10 +9,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import engine, groundstate, tebd
-from optimalcontrolmps_tpu import control as controllib
-from optimalcontrolmps_tpu import seeds
-from optimalcontrolmps_tpu.optimize import (
+from optimalcontrolmps import engine, groundstate, tebd
+from optimalcontrolmps import control as controllib
+from optimalcontrolmps import seeds
+from optimalcontrolmps.optimize import (
     minimize_lbfgs, minimize_nelder_mead, minimize_interior_point,
     make_penalized_cost, bound_penalty)
 
@@ -174,8 +174,8 @@ def test_flagship_converges_to_reference_opttol():
     stall — the round-2 verdict's headline gap. f64 sector engine,
     L-BFGS from the zero GROUP coefficient (adiabatic-seeded basis) plus
     an exact-Hessian Newton polish, exactly the bench.py polish phase."""
-    from optimalcontrolmps_tpu import sector
-    from optimalcontrolmps_tpu.optimize import minimize_newton
+    from optimalcontrolmps import sector
+    from optimalcontrolmps.optimize import minimize_newton
 
     T, dt, M, L, d, npart, gamma = 2.0, 0.01, 10, 5, 4, 5, 1e-6
     N = int(round(T / dt)) + 1
@@ -239,8 +239,8 @@ def test_grape_dimension_interior_point_converges():
     L-BFGS warm start + warm-mu IP; this part asserts that pipeline
     reaches kkt <= 1e-5 and a better-than-GROUP objective with all
     bounds honored."""
-    from optimalcontrolmps_tpu import sector
-    from optimalcontrolmps_tpu.optimize.penalty import bound_penalty
+    from optimalcontrolmps import sector
+    from optimalcontrolmps.optimize.penalty import bound_penalty
 
     dt, L, d, npart, gamma = 0.01, 5, 4, 5, 1e-6
     st = sector.make_sector_stepper(L, d, npart, 1.0, dt)

@@ -13,11 +13,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import engine, groundstate, tebd
-from optimalcontrolmps_tpu import control as controllib
-from optimalcontrolmps_tpu import seeds
-from optimalcontrolmps_tpu.parallel import make_mesh, multistart_lbfgs
-from optimalcontrolmps_tpu.parallel.multistart import make_train_step
+from optimalcontrolmps import engine, groundstate, tebd
+from optimalcontrolmps import control as controllib
+from optimalcontrolmps import seeds
+from optimalcontrolmps.parallel import make_mesh, multistart_lbfgs
+from optimalcontrolmps.parallel.multistart import make_train_step
 
 L, D, NPART = 4, 3, 4
 T, TSTEP, M, CHI = 0.1, 1e-2, 4, 16
@@ -84,7 +84,7 @@ def test_train_step_with_row_sharded_hessian(pieces):
 def test_scaling_bench_harness():
     """Weak-scaling harness runs over 1/2/4/8 virtual devices and reports
     sane efficiencies (SURVEY.md section 7 item 8)."""
-    from optimalcontrolmps_tpu.drivers import scaling_bench
+    from optimalcontrolmps.drivers import scaling_bench
 
     res = scaling_bench.run(per_device_batch=4, steps=1)
     assert [r["devices"] for r in res["rows"]] == [1, 2, 4, 8]
@@ -118,7 +118,7 @@ def test_vidal_tensor_parallel_rollout_matches():
     sharded over the mesh "rows" axis) must produce the same state as
     the unsharded rollout — sharding is a layout annotation, not a
     numerics change."""
-    from optimalcontrolmps_tpu import vidal
+    from optimalcontrolmps import vidal
 
     L, d, npart, chi = 6, 3, 6, 12
     st = tebd.make_stepper(L, d, 1.0, 0.01, chi, sweep="vidal")
@@ -133,7 +133,7 @@ def test_vidal_tensor_parallel_rollout_matches():
     # Vidal tensors carry an eigh-basis gauge that differs between
     # compilations; compare the PHYSICAL state and the gauge-invariant
     # Schmidt spectra instead
-    from optimalcontrolmps_tpu import mps
+    from optimalcontrolmps import mps
     v_ref = np.asarray(mps.to_statevector(ref.B))
     v_tp = np.asarray(mps.to_statevector(tp.B))
     ov = abs(np.vdot(v_ref, v_tp)) / (np.linalg.norm(v_ref)

@@ -9,8 +9,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import engine, groundstate, sector, seeds, tebd
-from optimalcontrolmps_tpu import control as controllib
+from optimalcontrolmps import engine, groundstate, sector, seeds, tebd
+from optimalcontrolmps import control as controllib
 
 L, NPART, D = 5, 5, 5
 J, CSTART, CEND = 1.0, 2.0, 50.0

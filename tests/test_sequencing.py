@@ -14,10 +14,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import engine, groundstate, tebd
-from optimalcontrolmps_tpu import control as controllib
-from optimalcontrolmps_tpu import seeds
-from optimalcontrolmps_tpu.problem import OptimalControlProblem
+from optimalcontrolmps import engine, groundstate, tebd
+from optimalcontrolmps import control as controllib
+from optimalcontrolmps import seeds
+from optimalcontrolmps.problem import OptimalControlProblem
 
 L, D, NPART = 3, 3, 3
 T, TSTEP = 0.5, 1e-2

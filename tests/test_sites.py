@@ -5,8 +5,8 @@ small product states."""
 import numpy as np
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import mps, observables
-from optimalcontrolmps_tpu.sites import op, local_dim, n_diag, nn1_diag
+from optimalcontrolmps import mps, observables
+from optimalcontrolmps.sites import op, local_dim, n_diag, nn1_diag
 
 
 D = 4

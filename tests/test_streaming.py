@@ -11,8 +11,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import engine, groundstate, seeds, tebd, vidal
-from optimalcontrolmps_tpu.streaming import pick_segment
+from optimalcontrolmps import engine, groundstate, seeds, tebd, vidal
+from optimalcontrolmps.streaming import pick_segment
 
 L, NPART, D = 4, 4, 3
 J, TSTEP = 1.0, 0.01

@@ -6,7 +6,7 @@ iterates as the traced while_loop driver.
 Reference anchors: calcHessian_* row propagation
 (/root/reference/src/OptimalControl.cpp:251-372) and the IPOPT pathway
 (/root/reference/src/BH_nlp.cpp) — the streaming machinery is the
-TPU-side redesign that makes the N=20/chi=200 BASELINE config fit HBM.
+redesign that makes the N=20/chi=200 BASELINE config fit device memory.
 """
 
 import numpy as np
@@ -14,8 +14,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import engine, groundstate, seeds, tebd, vidal
-from optimalcontrolmps_tpu.optimize.interior_point import (
+from optimalcontrolmps import engine, groundstate, seeds, tebd, vidal
+from optimalcontrolmps.optimize.interior_point import (
     cold_duals, minimize_interior_point, minimize_interior_point_host)
 
 
@@ -116,8 +116,8 @@ def test_flagship_group_cold_ip_converges_1e8():
     exact-Hessian interior point with the reference's adaptive mu
     (main/OptimizeRamp.cpp:106) must converge at optTol=1e-8
     (BENCH_NOTES: 31 iterations to kkt 2.5e-9 on this config)."""
-    from optimalcontrolmps_tpu import control as controllib
-    from optimalcontrolmps_tpu import sector
+    from optimalcontrolmps import control as controllib
+    from optimalcontrolmps import sector
 
     T, dt, M, L, d, npart, gamma = 2.0, 0.01, 10, 5, 4, 5, 1e-6
     N = int(round(T / dt)) + 1
@@ -151,7 +151,7 @@ def test_zero_slack_iterate_stays_finite():
     iteration 5): an iterate sitting EXACTLY on a bound must produce
     finite Newton data — slacks are floored at the dtype rounding scale
     so mu/s, the dual steps and the step limits never go inf/NaN."""
-    from optimalcontrolmps_tpu.optimize.interior_point import _make_core
+    from optimalcontrolmps.optimize.interior_point import _make_core
 
     fgh, B, u0, n = _quad_nlp()
     core = _make_core(fgh, jnp.zeros(n), -20.0, 20.0, B, u0, 2.0, 100.0,

@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 from functools import partial
 
-from optimalcontrolmps_tpu import tebd, exact, mps, groundstate
+from optimalcontrolmps import tebd, exact, mps, groundstate
 
 
 L, D, NPART = 5, 4, 5
@@ -81,7 +81,7 @@ def test_norm_preserved(setup):
 
 def test_particle_number_conserved(setup):
     st, _, _, A = setup
-    from optimalcontrolmps_tpu.sites import op
+    from optimalcontrolmps.sites import op
     nmat = op("N", D)
     B = A
     for i in range(5):
@@ -146,7 +146,7 @@ def test_two_site_chain():
 def test_apply_site_sum_diag(setup):
     """dH/du application (MPO bond-2 contraction + compress) vs dense."""
     st, est, vec, A = setup
-    from optimalcontrolmps_tpu.sites import nn1_diag
+    from optimalcontrolmps.sites import nn1_diag
     C, nrm = mps.apply_site_sum_diag(A, 0.5 * nn1_diag(D))
     dense_op = np.asarray(exact.statevector_nn1_total(L, D)) * 0.5
     vC = np.asarray(mps.to_statevector(C)) * float(nrm)
@@ -155,7 +155,7 @@ def test_apply_site_sum_diag(setup):
 
 def test_sandwich_site_sum(setup):
     st, est, vec, A = setup
-    from optimalcontrolmps_tpu.sites import nn1_diag
+    from optimalcontrolmps.sites import nn1_diag
     B = tebd.tebd_step(st, A, 2.0, 11.0, True)
     sv = complex(mps.sandwich_site_sum(B, A, 0.5 * nn1_diag(D)))
     dense_op = np.asarray(exact.statevector_nn1_total(L, D)) * 0.5
@@ -215,7 +215,7 @@ def test_range_trunc_guarded_for_all_sweeps():
     the physical rank bound; make_stepper must reject it for EVERY sweep
     when truncation is real (ADVICE.md round 1)."""
     import pytest
-    from optimalcontrolmps_tpu import tebd
+    from optimalcontrolmps import tebd
 
     # L=4, d=2 -> p=3, bound = min(3^2, 3^2) = 9; chi=4 truncates
     with pytest.raises(ValueError, match="range"):
@@ -229,7 +229,7 @@ def test_range_trunc_guarded_for_all_sweeps():
 def test_precision_policy_per_call(monkeypatch):
     """The matmul-precision policy is resolved per call: env-var changes
     after import and set_policy() both take effect (ADVICE.md round 1)."""
-    from optimalcontrolmps_tpu.ops import precision
+    from optimalcontrolmps.ops import precision
 
     monkeypatch.delenv("OCMPS_MATMUL_PRECISION", raising=False)
     precision.set_policy(None)

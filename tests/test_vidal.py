@@ -11,8 +11,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from optimalcontrolmps_tpu import (control, engine, exact, groundstate, mps,
-                                   seeds, tebd, vidal)
+from optimalcontrolmps import (control, engine, exact, groundstate, mps,
+                               seeds, tebd, vidal)
 
 L, D, NPART = 5, 4, 5
 J, DT, CHI = 1.0, 0.01, 30
@@ -186,7 +186,7 @@ def test_vidal_stepper_guards():
     with pytest.raises(TypeError):
         tebd.tebd_step(st, jnp.zeros((L, CHI, D + 1, CHI),
                                      jnp.complex128), 2.0, 3.0)
-    from optimalcontrolmps_tpu.backends import engine_for
+    from optimalcontrolmps.backends import engine_for
     assert engine_for(st) is vidal
 
 

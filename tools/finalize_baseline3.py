@@ -30,13 +30,13 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from optimalcontrolmps_tpu import io as iolib
-    from optimalcontrolmps_tpu import vidal
-    from optimalcontrolmps_tpu.backends import engine_for
-    from optimalcontrolmps_tpu.config import parse_input_file
-    from optimalcontrolmps_tpu.drivers.common import build_problem, time_axis
-    from optimalcontrolmps_tpu.ops import complex_io as cio
-    from optimalcontrolmps_tpu.profiling import enable_compile_cache
+    from optimalcontrolmps import io as iolib
+    from optimalcontrolmps import vidal
+    from optimalcontrolmps.backends import engine_for
+    from optimalcontrolmps.config import parse_input_file
+    from optimalcontrolmps.drivers.common import build_problem, time_axis
+    from optimalcontrolmps.ops import complex_io as cio
+    from optimalcontrolmps.profiling import enable_compile_cache
 
     enable_compile_cache()
     cfg = parse_input_file(os.path.join(outdir, "InputFile_BHcontrolT6.0"))
@@ -63,9 +63,9 @@ def main():
     print(f"F(T): initial {fid_init[-1]:.6f} -> final {fid_final[-1]:.6f}",
           flush=True)
 
-    from optimalcontrolmps_tpu.mps import expectation_values
-    from optimalcontrolmps_tpu.sites import op
-    from optimalcontrolmps_tpu.streaming import rollout_measure
+    from optimalcontrolmps.mps import expectation_values
+    from optimalcontrolmps.sites import op
+    from optimalcontrolmps.streaming import rollout_measure
     n_op = op("N", p.d)
     expn = jax.jit(lambda p0, uu: rollout_measure(
         lambda s, ua, ub: vidal.vidal_step(st, s, ua, ub, True), p0, uu,

@@ -4,7 +4,7 @@ Takes the ramped-DMRG A-tensor caches (.state_cache/L20d7chi200_U2.5.npz
 at full chi=200 — 96 CPU-min prep, artifacts/dmrg_chi200.log — and
 L20d7chi200_U50.0.npz at chi_prep=100 zero-pad-embedded, deep-Mott state),
 converts them to canonical-form VidalStates with matrix carriers (the
-matmul-only representation the restricted TPU backend requires), casts to
+matmul-only representation of truncMethod nssub), casts to
 the run dtype, and writes the io.save_states npz with the EXACT problem
 fingerprint drivers/common.build_problem computes for the run config —
 so `optimize_ramp` skips state prep entirely and goes straight to the
@@ -25,8 +25,8 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 
-from optimalcontrolmps_tpu import io as iolib
-from optimalcontrolmps_tpu import seeds, vidal
+from optimalcontrolmps import io as iolib
+from optimalcontrolmps import seeds, vidal
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -52,7 +52,7 @@ def main():
         z = np.load(path)
         A = np.asarray(z["A"])
         if A.shape[1] < chi:
-            from optimalcontrolmps_tpu import mps
+            from optimalcontrolmps import mps
             A = mps.pad_chi(A, chi)
         v = vidal.from_mps(A)
         if v.B.shape[1] > chi:

@@ -20,7 +20,7 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 
-from optimalcontrolmps_tpu import dmrg, mps
+from optimalcontrolmps import dmrg, mps
 
 L, d, npart, J, U = 20, 7, 20, 1.0, 50.0
 chi_prep, chi = 100, 200

@@ -30,8 +30,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from optimalcontrolmps_tpu import mps, seeds, tebd, vidal
-    from optimalcontrolmps_tpu.profiling import enable_compile_cache
+    from optimalcontrolmps import mps, seeds, tebd, vidal
+    from optimalcontrolmps.profiling import enable_compile_cache
     enable_compile_cache()
 
     backend = jax.devices()[0].platform
@@ -48,7 +48,7 @@ def main():
     A = np.asarray(mps.product_state(occ, d + 1, chi))
     v = vidal.from_mps(A)
     v = vidal.to_matrix_carriers(v)
-    from optimalcontrolmps_tpu.ops import complex_io as cio
+    from optimalcontrolmps.ops import complex_io as cio
     v = jax.tree_util.tree_map(
         lambda a: cio.put(np.asarray(a, dtype)), v)
 

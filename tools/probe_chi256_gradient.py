@@ -1,7 +1,7 @@
 """chi=256 segmented adjoint gradient at reference scale, on chip.
 
-Round-4's AnalyzeBondDim chi=256 gradient crashed the TPU worker (the
-[::-1] stack flips doubled peak HBM); round 5 replaced the flips with
+Round-4's AnalyzeBondDim chi=256 gradient ran out of device memory (the
+[::-1] stack flips doubled its peak); round 5 replaced the flips with
 reverse=True scans. This probe runs EXACTLY the crashed computation —
 vidal.gradient_segmented at N=20, d=7, chi=256, T=5, dt=5e-3
 (N_t=1001), exp ramp 2.5->50, nssub gram carriers, sqrt(N_t)
@@ -31,12 +31,12 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from optimalcontrolmps_tpu import mps as mpslib
-    from optimalcontrolmps_tpu import seeds, tebd, vidal
-    from optimalcontrolmps_tpu.drivers.prep_states import (
+    from optimalcontrolmps import mps as mpslib
+    from optimalcontrolmps import seeds, tebd, vidal
+    from optimalcontrolmps.drivers.prep_states import (
         ensure_boundary_states)
-    from optimalcontrolmps_tpu.ops import complex_io as cio
-    from optimalcontrolmps_tpu.profiling import enable_compile_cache
+    from optimalcontrolmps.ops import complex_io as cio
+    from optimalcontrolmps.profiling import enable_compile_cache
     enable_compile_cache()
 
     n = int(T / tstep + 1)

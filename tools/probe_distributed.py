@@ -30,7 +30,7 @@ def worker(rank: int, nprocs: int, port: int):
     import jax.numpy as jnp
     import numpy as np
 
-    from optimalcontrolmps_tpu.parallel.mesh import init_distributed
+    from optimalcontrolmps.parallel.mesh import init_distributed
 
     nproc, pid = init_distributed(
         coordinator_address=f"127.0.0.1:{port}",
@@ -44,9 +44,9 @@ def worker(rank: int, nprocs: int, port: int):
 
     # sharded multistart: each process owns its local shard of the seed
     # batch; the argmin reduction crosses the process boundary
-    from optimalcontrolmps_tpu import control, sector, seeds
-    from optimalcontrolmps_tpu.optimize import minimize_lbfgs
-    from optimalcontrolmps_tpu.optimize.penalty import bound_penalty
+    from optimalcontrolmps import control, sector, seeds
+    from optimalcontrolmps.optimize import minimize_lbfgs
+    from optimalcontrolmps.optimize.penalty import bound_penalty
 
     T, dt, M, L, d, npart, gamma = 0.5, 0.01, 8, 4, 3, 4, 1e-6
     N = int(round(T / dt)) + 1

@@ -1,11 +1,11 @@
-"""A/B probe: sector gradient_lowmem step formulations on the real TPU.
+"""A/B probe: sector gradient_lowmem step formulations on the default device.
 
-All variants use the distinct-nn1-value phase gather (the round-2 1.8x win).
+All variants use the distinct-nn1-value phase gather.
 
   old        — round-1 shipped chain: phase, GEMM, phase, norm per step
   fused      — merged-phase carriers (one phase multiply per step, no norm)
                == the shipped sector.gradient_lowmem after the round-2 edit
-  fused128   — fused + constants zero-padded to ns=128 (exact MXU/lane tile)
+  fused128   — fused + constants zero-padded to ns=128 (whole 128-wide tiles)
 
 Accuracy vs the exact complex128 golden J=0.1292463977 (seed-3 control,
 tools/probe_trunc.py). Usage: python tools/probe_fused.py [batch]
@@ -25,9 +25,9 @@ GOLDEN_J = 0.1292463977
 def make_fn(variant: str):
     import jax
     import jax.numpy as jnp
-    from optimalcontrolmps_tpu import control, sector, seeds
-    from optimalcontrolmps_tpu.engine import (regularization,
-                                              regularization_grad)
+    from optimalcontrolmps import control, sector, seeds
+    from optimalcontrolmps.engine import (regularization,
+                                          regularization_grad)
 
     T, dt, M, L, d, npart = 2.0, 0.01, 10, 5, 4, 5
     N = int(round(T / dt)) + 1

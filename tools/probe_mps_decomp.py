@@ -1,4 +1,4 @@
-"""Decompose the MPS brick-step cost on TPU + probe QR alternatives.
+"""Decompose the MPS brick-step cost on the device + probe QR alternatives.
 
 Flagship MPS shapes: L=5, p=5, chi=32; theta per bond = (chi*p, p*chi)
 = (160, 160); range split sketches to (160, 32) then orthonormalizes.
@@ -45,7 +45,7 @@ def main():
     STEPS = int(sys.argv[2]) if len(sys.argv) > 2 else 400
     import jax
     import jax.numpy as jnp
-    from optimalcontrolmps_tpu import groundstate, tebd
+    from optimalcontrolmps import groundstate, tebd
 
     L, d, npart, chi, dt = 5, 4, 5, 32, 0.01
     p = d + 1

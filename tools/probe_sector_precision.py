@@ -2,12 +2,12 @@
 
 The MPS path needs f32-highest (bf16 passes accumulate ~1e-2 over ~1600
 chained bond ops — ops/precision.py). The sector chain is different
-arithmetic: ~400 unitary (128,128) GEMMs, no factorizations. If "high"
-(3-pass bf16) already sits at the f32 noise floor there, the flagship
-bench GEMMs get ~2x cheaper.
+arithmetic: ~400 unitary (128,128) GEMMs, no factorizations. If a lower
+precision ("high", "default") already sits at the f32 noise floor there,
+the flagship bench GEMMs get cheaper.
 
 Per policy in {highest, high, default}: timed vmapped gradient_lowmem at
-batch B (scalar-in/scalar-out), plus J at the probe_tpu_accuracy control
+batch B (scalar-in/scalar-out), plus J at the probe_trunc control
 (golden J=0.1292463977, c128 CPU).
 
 Usage: python tools/probe_sector_precision.py [batch] [reps]
@@ -29,9 +29,9 @@ def main():
     reps = int(sys.argv[2]) if len(sys.argv) > 2 else 5
     import jax
     import jax.numpy as jnp
-    from optimalcontrolmps_tpu import sector
-    from optimalcontrolmps_tpu.engine import regularization
-    from optimalcontrolmps_tpu.ops import precision
+    from optimalcontrolmps import sector
+    from optimalcontrolmps.engine import regularization
+    from optimalcontrolmps.ops import precision
     import __graft_entry__ as ge
 
     print(f"backend={jax.devices()[0].platform} B={B}", flush=True)

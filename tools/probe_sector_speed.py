@@ -1,4 +1,4 @@
-"""Sector-engine speed probe: per-step cost variants on the real TPU.
+"""Sector-engine speed probe: per-step cost variants on the default device.
 
 Measures batched cost+adjoint-gradient throughput of the flagship sector
 workload for several step formulations, each with an accuracy check against
@@ -8,9 +8,9 @@ the sector channel is exact, tools/probe_trunc.py):
   base        — sector.gradient_lowmem as shipped (per-step renorm, highest)
   nonorm      — no per-step normalization (the step is unitary; one final
                 normalization pins f32 drift)
-  pad128      — ns=126 padded to 128 (exact MXU tile)
+  pad128      — ns=126 padded to 128 (whole 128-wide tile)
   nonorm128   — both
-  high        — matmul precision "high" (3-pass f32) instead of "highest"
+  high        — matmul precision "high" instead of "highest"
   high-nn128  — "high" + nonorm + pad128
 
 Usage: python tools/probe_sector_speed.py [batch]
@@ -30,9 +30,9 @@ GOLDEN_J = 0.1292463977
 def make_variant(norm_every_step: bool, pad: int | None):
     import jax
     import jax.numpy as jnp
-    from optimalcontrolmps_tpu import control, sector, seeds
-    from optimalcontrolmps_tpu.engine import (regularization,
-                                              regularization_grad)
+    from optimalcontrolmps import control, sector, seeds
+    from optimalcontrolmps.engine import (regularization,
+                                          regularization_grad)
 
     T, dt, M, L, d, npart = 2.0, 0.01, 10, 5, 4, 5
     N = int(round(T / dt)) + 1

@@ -1,6 +1,6 @@
 """A/B probe: orthonormalization policy inside the vidal bond update.
 
-Times the vidal rollout (L=20, d=7 scaled-lattice config) on the real TPU
+Times the vidal rollout (L=20, d=7 scaled-lattice config) on the device
 for each OCMPS_TRUNC_ORTH policy and checks state accuracy against an f64
 CPU golden (vidal with exact eigh truncation). Accuracy = |<golden|psi>|^2
 of the final state plus the norm drift.
@@ -35,7 +35,7 @@ def golden(L, chi, steps):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
-    from optimalcontrolmps_tpu import mps, tebd, vidal
+    from optimalcontrolmps import mps, tebd, vidal
 
     d, p, occ, u = build(L, chi, steps)
     A0 = mps.product_state(occ, p, chi, dtype=np.complex128)
@@ -67,9 +67,9 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from optimalcontrolmps_tpu import mps, tebd, vidal
-    from optimalcontrolmps_tpu.ops import complex_io as cio
-    from optimalcontrolmps_tpu.profiling import enable_compile_cache
+    from optimalcontrolmps import mps, tebd, vidal
+    from optimalcontrolmps.ops import complex_io as cio
+    from optimalcontrolmps.profiling import enable_compile_cache
 
     enable_compile_cache()
     gold = np.load(gold_path)["B"]

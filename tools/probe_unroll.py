@@ -35,7 +35,7 @@ def main():
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 16384
     import jax
     import jax.numpy as jnp
-    from optimalcontrolmps_tpu import sector
+    from optimalcontrolmps import sector
 
     print(f"backend={jax.devices()[0].platform} B={B}", flush=True)
     st = sector.make_sector_stepper(5, 4, 5, 1.0, 0.01, dtype=jnp.complex64)

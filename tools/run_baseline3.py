@@ -3,8 +3,7 @@
 N=20, d=7, Npart=20, T=6.0, GROUP M=30, exact-Hessian interior point
 (streaming block Hessian + host-mode IP), boundary states from the
 ramped chi=200 DMRG (artifacts/baseline3/states.npz). The per-iteration
-wall is Hessian-dominated: measured 41.8 ms/row-step at chi=128
-(artifacts/probe_block_chi128.log) -> ~32 min/Hessian at N_t=301.
+wall is Hessian-dominated (N_t^2/2 row steps per Hessian).
 
 Usage: python tools/run_baseline3.py [InputFile] [out_prefix]
 """
@@ -26,8 +25,8 @@ def main():
     prefix = sys.argv[2] if len(sys.argv) > 2 else os.path.join(
         REPO, "artifacts", "baseline3") + os.sep
 
-    from optimalcontrolmps_tpu.drivers import optimize_ramp
-    from optimalcontrolmps_tpu.profiling import enable_compile_cache
+    from optimalcontrolmps.drivers import optimize_ramp
+    from optimalcontrolmps.profiling import enable_compile_cache
     enable_compile_cache()
 
     t0 = time.time()

@@ -32,9 +32,9 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    from optimalcontrolmps_tpu import control, sector, seeds
-    from optimalcontrolmps_tpu.parallel import mesh as meshlib
-    from optimalcontrolmps_tpu.parallel.multistart import multistart_lbfgs
+    from optimalcontrolmps import control, sector, seeds
+    from optimalcontrolmps.parallel import mesh as meshlib
+    from optimalcontrolmps.parallel.multistart import multistart_lbfgs
 
     dt, M, L, d, npart, gamma = 0.01, 10, 5, 4, 5, 1e-6
     N = int(round(T / dt)) + 1
